@@ -1,6 +1,6 @@
 // Native host-side runtime for mgf_tpu.
 //
-// The TPU owns the compute path (JAX/XLA); this library owns the host-side
+// The accelerator owns the compute path (JAX/XLA); this library owns the host-side
 // data plumbing around it — the moral equivalent of the reference's native
 // containers and builders (Pool/BVH construction, mesh assembly), done as
 // cache-friendly C++ over flat arrays and exposed to Python via ctypes:

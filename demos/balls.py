@@ -18,6 +18,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import jax
 import numpy as np
 
+from mgf_tpu.utils.runtime import enable_compile_cache
+
 
 def main():
     ap = argparse.ArgumentParser()
@@ -30,6 +32,7 @@ def main():
     ap.add_argument("--render", default=None,
                     help="render the final frame to a .ppm image")
     args = ap.parse_args()
+    enable_compile_cache()
 
     from mgf_tpu.scenes import balls_scene
     from mgf_tpu.world import make_step_fn

@@ -6,8 +6,8 @@ balls_vs.glsl, balls_fs.glsl), a perspective camera driven by WASD/mouse
 (mgf_demo/input.rs:81-110, balls.rs:98-101), and per-shape draw calls
 (mgf_demo/world.rs:296-392: spheres, capsules, terrain triangles).
 
-There is no display on a TPU host, so this module reproduces that pipeline
-as a small z-buffered numpy rasterizer writing PPM frames:
+There is no display on an accelerator host, so this module reproduces that
+pipeline as a small z-buffered numpy rasterizer writing PPM frames:
 
 * :class:`Camera` + :func:`view_proj` — the MVP of balls_vs.glsl,
 * :func:`apply_input` — the WASD + mouse-look mapping of input.rs,

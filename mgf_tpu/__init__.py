@@ -1,10 +1,10 @@
-"""mgf_tpu — a TPU-native 3D collision-detection and rigid-body physics engine.
+"""mgf_tpu — a JAX 3D collision-detection and rigid-body physics engine.
 
 A ground-up JAX/XLA/Pallas re-design of the capabilities of ``maplant/mgf``
-(a Rust collision/physics library; reference layout in /root/reference):
+(a Rust collision/physics library; its layout is surveyed in SURVEY.md):
 
-* all vectors are Vec3 pytrees of component arrays — full 128-lane VPU
-  utilization and 1x (not 42x) memory (``math3d``),
+* all vectors are Vec3 pytrees of component arrays — every vector op runs
+  on contiguous (N,) arrays (``math3d``),
 * shapes live in structure-of-arrays pytrees (``geom``),
 * narrowphase collision tests are branch-free natively-batched kernels
   (``collision``),

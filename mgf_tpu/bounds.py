@@ -1,6 +1,6 @@
 """Bounding-volume algebra: AABB and bounding-sphere operations.
 
-TPU-native counterpart of ``src/bounds.rs`` in component (Vec3) form:
+Counterpart of ``src/bounds.rs`` in component (Vec3) form:
 combine/surface-area/expand on AABBs and Spheres, plus per-shape bounds.
 """
 

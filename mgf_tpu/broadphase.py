@@ -2,7 +2,7 @@
 
 The reference uses an incremental SAH-balanced AABB tree with fat proxies
 (src/bvh.rs + mgf_demo/world.rs:233-238).  Pointer trees and per-object
-insert/remove do not map to the TPU, so this module replaces them with a
+insert/remove do not map to batched device code, so this module replaces them with a
 *modular cell grid* rebuilt every step:
 
 1. bodies are binned by swept-AABB center into cells of side ``cell_size``,
@@ -75,8 +75,8 @@ def _bucket_ranks(sorted_h, n):
     """Rank of each element within its run of equal keys.
 
     Equivalent to ``arange - searchsorted(sorted_h, sorted_h)`` but built
-    from a cummax instead of searchsorted (XLA lowers searchsorted to a
-    while-loop that costs ~20 ms at 100k on v5e)."""
+    from a cummax instead of searchsorted (XLA can lower searchsorted to a
+    while-loop)."""
     ar = jnp.arange(n, dtype=jnp.int32)
     is_start = jnp.concatenate([jnp.ones((1,), bool),
                                 sorted_h[1:] != sorted_h[:-1]])
@@ -91,7 +91,7 @@ def build_grid(centers: Vec3, cfg: GridConfig, valid=None) -> GridTable:
     ``valid`` (N,) bool: rows marked False are NOT inserted (and not
     counted as overflow).  Parked pad/halo rows alias into in-scene cells
     through the grid modulus and can evict real bodies from full buckets
-    (ADVICE r2) — callers with inert rows must mask them out here rather
+    — callers with inert rows must mask them out here rather
     than relying on far-away positions."""
     n = centers.x.shape[0]
     cx, cy, cz = _cell_coords(centers, cfg)
@@ -118,7 +118,7 @@ _OFFSETS = [(dx, dy, dz)
 class FatGrid(NamedTuple):
     """A cell table whose buckets carry the occupants' bounds inline:
     float rows [cx cy cz r_eff idx 0 0 0] — candidate generation + AABB cull
-    then needs NO per-candidate body gather (TPU gathers cost per index;
+    then needs NO per-candidate body gather (gathers cost per index;
     this trades 8x more bytes per *bucket* fetch for 8x fewer indexed
     fetches overall).
 
@@ -159,8 +159,9 @@ def build_fat_grid(bounds: AABB, cfg: GridConfig, width: int = 8,
         # (N, cap) vector ops rather than 8*cap scalar-slot rounds.
         # r4: ONE (N, 4)-row scatter into slot-major (ncell*cap, 4) then a
         # layout transpose to component-blocked — the four per-component
-        # scatters were most of the 13 ms build at 100k (scatter cost is
-        # per index; the 25 MB transpose is bandwidth noise).
+        # scatters were most of the build at 100k on the engine's first
+        # accelerator (scatter cost is per index; the 25 MB transpose is
+        # bandwidth noise).
         cap = cfg.bucket_cap
         ncell = grid_ncells(cfg)
         rows4 = jnp.stack([centers.x[order], centers.y[order],
@@ -199,7 +200,7 @@ def fat_grid_pairs(bounds: AABB, grid: FatGrid, cfg: GridConfig,
     """Candidate partners per body straight from the fat grid: bucket-row
     gathers (N indices each) -> AABB cull -> top-k by center distance.
     Replaces neighbor_candidates + refine_pairs with far fewer gather
-    indices (TPU gathers cost per index).  Returns (partner
+    indices (gathers cost per index).  Returns (partner
     (N, max_pairs) int32, valid).
 
     ``window`` selects the query neighborhood:
@@ -344,7 +345,7 @@ def neighbor_candidates(centers: Vec3, table: GridTable, cfg: GridConfig):
 
 def pack_bounds(bounds: AABB):
     """Pack AABB center + conservative cube radius into one (N, 4) array so
-    candidate culling does ONE narrow gather instead of six — TPU gather
+    candidate culling does ONE narrow gather instead of six — gather
     cost is per index, and the 4-wide row halves the gathered bytes vs an
     8-wide pack (the cube radius over-admits slightly; top-k absorbs it)."""
     r_eff = jnp.maximum(bounds.r.x, jnp.maximum(bounds.r.y, bounds.r.z))

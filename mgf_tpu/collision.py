@@ -1,10 +1,10 @@
 """Narrowphase collision detection: discrete + continuous, branch-free.
 
-TPU-native counterpart of the reference's ``src/collision.rs``.  Where mgf
+Counterpart of the reference's ``src/collision.rs``.  Where mgf
 dispatches on traits and signals results with ``Option``/callbacks, this
 module returns fixed-shape results with validity masks, and every vector is a
 :class:`~mgf_tpu.math3d.Vec3` of component arrays so the whole narrowphase
-runs on full 128-lane VPU batches:
+runs as dense elementwise batches:
 
 * ``overlap_*`` / ``contains_*`` — boolean tests (collision.rs:17-147),
 * ``intersect_*`` — ray/segment TOI tests returning :class:`Intersection`

@@ -1,6 +1,6 @@
 """Compound shapes: aggregates of sphere/capsule components.
 
-TPU-native counterpart of ``src/compound.rs``.  The reference's runtime
+Counterpart of ``src/compound.rs``.  The reference's runtime
 ``Component`` enum is the engine-wide (shape_type, r, half_h) encoding
 (physics.SHAPE_*); this module adds the aggregate :class:`Compound` — a set
 of components with a shared displacement + rotation (compound.rs:232-242).

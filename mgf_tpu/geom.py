@@ -1,9 +1,9 @@
 """Primitive shapes and the geometric vocabulary of the engine.
 
-TPU-native counterpart of the reference's ``src/geom.rs``.  Shapes are
+Counterpart of the reference's ``src/geom.rs``.  Shapes are
 ``NamedTuple`` pytrees whose vector fields are :class:`~mgf_tpu.math3d.Vec3`
 component arrays, so a single Sphere and a batch of a million spheres are the
-same type, every routine is branch-free, and every array has a TPU-friendly
+same type, every routine is branch-free, and every array has a batch-contiguous
 layout (see math3d's module docstring for why components, not (...,3)).
 
 Reference parity notes cite mgf items as geom.rs:line.

@@ -1,6 +1,6 @@
 """GJK distance + EPA penetration, as fixed-iteration batched kernels.
 
-TPU-native counterpart of the reference's ``src/simplex.rs``: the vtable
+Counterpart of the reference's ``src/simplex.rs``: the vtable
 state machine (Simplex/SimplexState, simplex.rs:30-415) becomes a branch-free
 simplex of four explicit support-point slots evolved inside a bounded
 ``lax.fori_loop``; EPA's growable triangle Pool + hash-based horizon EdgeMap
@@ -56,6 +56,17 @@ def minkowski_support(support_a: Callable, support_b: Callable):
         pb = support_b(-d)
         return SupportPoint(p=pa - pb, a=pa, b=pb)
     return f
+
+
+def horizon_pick(match, tree):
+    """For each slot t, the leaf entries of the one edge e with
+    ``match[t, e]`` — an exact index gather (no arithmetic, so no
+    rounding: a float product would run in TF32 on a GPU).  ``match`` is
+    (T, E, batch) with at most one True per (t, batch); slots with none
+    get edge 0's entries and must be masked by the caller."""
+    idx = jnp.argmax(match, axis=1)                    # (T, batch)
+    return jax.tree_util.tree_map(
+        lambda x: jnp.take_along_axis(x, idx, axis=0), tree)
 
 
 def _sp_where(cond, s1: SupportPoint, s2: SupportPoint) -> SupportPoint:
@@ -488,17 +499,16 @@ def epa(support: Callable, res: GjkResult, max_iters: int = EPA_MAX_ITERS,
         h_rank = jnp.cumsum(horizon.astype(jnp.int32), axis=0) - 1
 
         # for each free slot k, find the horizon edge with the same rank
-        # via a (T, E) match (T*E = 12k bools per lane)
+        # via a (T, E) match (T*E = 12k bools per lane); ranks are unique,
+        # so a slot matches at most one edge and the pick is an exact
+        # index gather (slots with no match are masked by `got` below)
         match = (free_rank[:, None] == h_rank[None, :]) \
             & free[:, None] & horizon[None, :]
-        pick_sp = lambda tree: jax.tree_util.tree_map(
-            lambda x: jnp.einsum('te...,e...->t...',
-                                 match.astype(x.dtype), x), tree)
-        new_a = pick_sp(e_a)
-        new_b = pick_sp(e_b)
+        new_a = horizon_pick(match, e_a)
+        new_b = horizon_pick(match, e_b)
         got = jnp.any(match, axis=1)
 
-        # saturation (ADVICE r1): a horizon edge with no free slot leaves
+        # saturation: a horizon edge with no free slot leaves
         # the polytope non-watertight — the returned normal/depth may be
         # degraded.  Flag it so callers can detect capacity overflow.
         edge_written = jnp.any(match, axis=0)          # (E, batch)
@@ -572,7 +582,7 @@ def contact_convex_convex(support_a: Callable, support_b: Callable,
 def contact_convex_convex_ex(support_a: Callable, support_b: Callable,
                              batch_ones):
     """Like :func:`contact_convex_convex` but also returns the EPA
-    saturation mask (capacity-overflow observability, ADVICE r1)."""
+    saturation mask (capacity-overflow observability)."""
     diff = minkowski_support(support_a, support_b)
     one = jnp.ones_like(batch_ones)
     init = Vec3(one * 0.0, one, one * 0.0)

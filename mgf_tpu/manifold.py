@@ -1,6 +1,6 @@
 """Contact pruning and manifold construction.
 
-TPU-native counterpart of ``src/manifold.rs``: per body-pair, keep only the
+Counterpart of ``src/manifold.rs``: per body-pair, keep only the
 contacts at the earliest time of impact (within COLLISION_EPSILON) and drop
 points closer than PERSISTENT_THRESHOLD to an already-kept point, preferring
 the point farther from the bodies' centers.  The reference's SmallVec becomes

@@ -1,15 +1,17 @@
-"""Vector / quaternion / 3x3-matrix math, in TPU-native component form.
+"""Vector / quaternion / 3x3-matrix math, in component form.
 
 The mgf reference delegates this layer to the ``cgmath`` crate (src/lib.rs:114).
 Here 3-vectors are :class:`Vec3` pytrees of three *separate* scalar arrays,
 quaternions are :class:`Quat` (w, x, y, z component arrays), and 3x3 matrices
 are :class:`Mat3` (nine component arrays).
 
-Why components instead of ``(..., 3)`` arrays: TPU vector memory tiles the
-minor dimension to 128 lanes, so an ``(N, 3)`` array is physically padded to
-``(N, 128)`` — 42x the memory and 3/128 of the VPU lanes for every op.
-Component arrays of shape ``(N,)`` use every lane and every byte.  Measured on
-a v5e, a 160k-lane narrowphase kernel runs ~190x faster in component form.
+Why components instead of ``(..., 3)`` arrays: an ``(N, 3)`` array puts the
+three components in the minor dimension, so every elementwise op works on
+a 3-wide inner axis that vector hardware pads or strides over, and every
+cross/dot product shuffles within it.  Component arrays of shape ``(N,)``
+are contiguous along the batch, so each op is one dense elementwise pass
+that XLA fuses freely (the engine's first accelerator padded the minor
+dimension to 128; the H100 cost of the ``(N, 3)`` form is not measured).
 
 All ops broadcast: a Vec3 of scalars and a Vec3 of (N,) arrays combine like
 jnp scalars/arrays.  Guarded ``safe_*`` variants never produce NaN/Inf from

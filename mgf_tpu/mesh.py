@@ -1,6 +1,6 @@
 """Triangle meshes and convex point-soup meshes.
 
-TPU-native counterpart of ``src/mesh.rs``:
+Counterpart of ``src/mesh.rs``:
 
 * :class:`Mesh` — a non-convex triangle soup with a displacement, the
   reference's ``Mesh`` (mesh.rs:32-37).  Where mgf accelerates face lookup

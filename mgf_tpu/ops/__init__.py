@@ -1,16 +1,2 @@
-"""Pallas TPU kernels for hot ops, with pure-jnp reference fallbacks.
-
-Scope note (measured on v5e): the engine's hot loops are *gather-bound*, and
-Mosaic's vector gather currently only supports single-vreg sources ("Not
-implemented: Multiple source vregs along gather dimension"), so the
-gather-heavy stages (broadphase candidate fetch, solver partner-state fetch)
-stay in XLA where the gather runtime is tuned.  What Pallas *can* win is
-fusion of long elementwise chains over pair rows — keeping the ~40
-intermediate arrays of a contact test in VMEM instead of round-tripping HBM.
-
-Kernels:
-* :func:`sphere_contact_pairs` — fused sphere-vs-moving-sphere contact over
-  packed pair rows (the hot kernel of the balls/stress scenes).
-"""
-
-from mgf_tpu.ops.narrowphase import sphere_contact_pairs
+"""Pallas kernels for hot ops; the jnp paths they fuse stay the source of
+truth."""

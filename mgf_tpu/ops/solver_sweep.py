@@ -1,19 +1,19 @@
-"""Fused row-solver inner sweeps as a Pallas TPU kernel.
+"""Fused row-solver inner sweeps as a Pallas kernel for Hopper (Triton).
 
 ``solve_rows`` (solver.py) freezes the partner velocity term for each
 OUTER iteration and runs ``inner_iters`` block-Jacobi sweeps that update
 only each body's OWN velocity — so within an outer iteration the columns
-(bodies) are fully independent, and the whole inner loop can run
-block-by-block in VMEM.  The jnp inner loop re-reads the ~16 (R, N)
-constraint channels from HBM every sweep (~77 MB x inner_iters at 100k);
-this kernel streams them ONCE per outer iteration and keeps the sweep
-state (va, oa, accumulated impulses) resident across sweeps.
+(bodies) are fully independent, and the whole inner loop can run inside
+one program per block of bodies.  The jnp inner loop re-reads the ~18
+(R, N) constraint channels from device memory every sweep; this kernel
+reads them once per outer iteration and holds them, with the sweep state
+(va, oa, accumulated impulses), in registers across the sweeps (re-reading
+them from L2 each sweep measured slower; PERF.md).
 
 Semantics are exactly ``solve_rows``'s single-phase textbook-friction iso
 path (solver.rs:220-240 impulse math; scalar isotropic world inverse
 inertia — the spheres fast path): same operations in the same order, so
-results agree with the jnp path to float addition-order noise.  The jnp
-path stays the source of truth; tests assert both agree.
+results agree with the jnp path to float addition-order noise.
 
 Channel layout of the packed (18, R, N) constraint tensor (see
 pack_row_fields): normal(3) t1(3) t2(3) ra(3), then friction, bias,
@@ -27,18 +27,24 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-_BLOCK = 512
+# bodies per program (a power of two: Triton block sizes; 32 measured
+# fastest of 32/64 on the H100, PERF.md) and warps per program
+BLOCK = 32
+NUM_WARPS = 4
 
-# channel indices in the packed (18, R, N) constraint tensor
 _NCH = 18
+
+
+def row_pad(R: int) -> int:
+    """Rows padded to the next power of two (Triton block shapes)."""
+    return 1 << max(int(R) - 1, 0).bit_length()
 
 
 def pack_row_fields(rc) -> jnp.ndarray:
     """Stack the RowConstraints channels the sweep reads into one
-    (18, R, N) f32 tensor (built once per step; the kernel streams it once
-    per OUTER iteration instead of once per sweep)."""
+    (18, R, N) f32 tensor (built once per step)."""
     v = rc.valid.astype(jnp.float32)
     return jnp.stack([
         rc.normal.x, rc.normal.y, rc.normal.z,
@@ -52,32 +58,24 @@ def pack_row_fields(rc) -> jnp.ndarray:
 
 def _kernel(fields_ref, term_ref, self_ref, s_in_ref, acc_in_ref,
             s_out_ref, acc_out_ref, *, inner_iters: int):
-    f = fields_ref[:]                 # (18, R, B)
-    nx, ny, nz = f[0], f[1], f[2]
-    t1x, t1y, t1z = f[3], f[4], f[5]
-    t2x, t2y, t2z = f[6], f[7], f[8]
-    rax, ray, raz = f[9], f[10], f[11]
-    fric, bias, nm = f[12], f[13], f[14]
-    tm1, tm2, valid = f[15], f[16], f[17]
-    term = term_ref[:]                # (3, R, B) frozen partner term
-    tx, ty, tz = term[0], term[1], term[2]
-    sp = self_ref[:]                  # (2, B): inv_mass, iso inv inertia
-    ima, ia_s = sp[0], sp[1]
-    s0 = s_in_ref[:]                  # (8, B)
-    acc0 = acc_in_ref[:]              # (3, R, B): acc_n, acc_t1, acc_t2
+    f = [fields_ref[c] for c in range(_NCH)]            # each (R, B)
+    tx, ty, tz = term_ref[0], term_ref[1], term_ref[2]  # frozen partner term
+    ima, ia_s = self_ref[0], self_ref[1]                # (B,)
 
     def sweep(_, carry):
+        (nx, ny, nz, t1x, t1y, t1z, t2x, t2y, t2z, rax, ray, raz,
+         fric, bias, nm, tm1, tm2, valid) = f
         vax, vay, vaz, oax, oay, oaz, acc_n, acc_t1, acc_t2 = carry
-        # dv = frozen partner term - (va + oa x ra), broadcast (B,)->(R,B)
-        dvx = tx - (vax + oay * raz - oaz * ray)
-        dvy = ty - (vay + oaz * rax - oax * raz)
-        dvz = tz - (vaz + oax * ray - oay * rax)
+        # dv = frozen partner term - (va + oa x ra), (B,) -> (R, B)
+        dvx = tx - (vax[None, :] + oay[None, :] * raz - oaz[None, :] * ray)
+        dvy = ty - (vay[None, :] + oaz[None, :] * rax - oax[None, :] * raz)
+        dvz = tz - (vaz[None, :] + oax[None, :] * ray - oay[None, :] * rax)
         # friction first (single-phase: both from the same dv)
         lam1 = -(dvx * t1x + dvy * t1y + dvz * t1z) * tm1
         lam2 = -(dvx * t2x + dvy * t2y + dvz * t2z) * tm2
         max_l = fric * acc_n
-        new1 = jnp.clip(acc_t1 + lam1, -max_l, max_l)
-        new2 = jnp.clip(acc_t2 + lam2, -max_l, max_l)
+        new1 = jnp.minimum(jnp.maximum(acc_t1 + lam1, -max_l), max_l)
+        new2 = jnp.minimum(jnp.maximum(acc_t2 + lam2, -max_l), max_l)
         f1 = new1 - acc_t1
         f2 = new2 - acc_t2
         # projected normal impulse from the same dv
@@ -96,22 +94,26 @@ def _kernel(fields_ref, term_ref, self_ref, s_in_ref, acc_in_ref,
         angx = -jnp.sum(ray * iz - raz * iy, axis=0) * ia_s
         angy = -jnp.sum(raz * ix - rax * iz, axis=0) * ia_s
         angz = -jnp.sum(rax * iy - ray * ix, axis=0) * ia_s
+        ok = valid > 0.0
         return (vax + linx, vay + liny, vaz + linz,
                 oax + angx, oay + angy, oaz + angz,
-                jnp.where(valid > 0.0, new_n, acc_n),
-                jnp.where(valid > 0.0, new1, acc_t1),
-                jnp.where(valid > 0.0, new2, acc_t2))
+                jnp.where(ok, new_n, acc_n),
+                jnp.where(ok, new1, acc_t1),
+                jnp.where(ok, new2, acc_t2))
 
-    init = (s0[0], s0[1], s0[2], s0[3], s0[4], s0[5],
-            acc0[0], acc0[1], acc0[2])
+    init = tuple(s_in_ref[k] for k in range(6)) + tuple(
+        acc_in_ref[k] for k in range(3))
     out = jax.lax.fori_loop(0, inner_iters, sweep, init)
-    s_out_ref[0:6] = jnp.stack(out[0:6])
-    s_out_ref[6:8] = s0[6:8]
-    acc_out_ref[:] = jnp.stack(out[6:9])
+    for k in range(6):
+        s_out_ref[k] = out[k]
+    for k in range(6, 8):
+        s_out_ref[k] = s_in_ref[k]
+    for k in range(3):
+        acc_out_ref[k] = out[6 + k]
 
 
 def inner_sweeps(S, fields, term, self_p, acc, inner_iters: int,
-                 interpret: bool = None):
+                 interpret: bool = False):
     """Run ``inner_iters`` fused block-Jacobi inner sweeps.
 
     S        (8, N)  packed body state (rows vx vy vz ox oy oz _ _)
@@ -120,39 +122,33 @@ def inner_sweeps(S, fields, term, self_p, acc, inner_iters: int,
     self_p   (2, N)  [inv_mass, iso inverse inertia]
     acc      (3, R, N) accumulated impulses (n, t1, t2)
 
-    Returns (S', acc').  N must be a multiple of the 512 block (callers
-    pad; padded columns must have valid = 0).
+    Returns (S', acc').  R must be a power of two and N a multiple of
+    ``BLOCK`` (callers pad; padded rows and columns must have valid = 0).
+    Compiles through Triton for the GPU; ``interpret=True`` runs the
+    Pallas interpreter instead (CPU tests).
     """
-    if interpret is None:
-        # CPU (the virtual test mesh) runs the interpreter; real TPUs
-        # compile via Mosaic
-        interpret = jax.default_backend() == "cpu"
+    if not interpret and jax.default_backend() != "gpu":
+        raise RuntimeError(
+            "inner_sweeps compiles for the GPU only; pass interpret=True "
+            f"to run it on the {jax.default_backend()!r} backend")
     n = S.shape[1]
-    assert n % _BLOCK == 0, n
-    grid = (n // _BLOCK,)
     R = fields.shape[1]
-    bs = lambda c: pl.BlockSpec((c, R, _BLOCK), lambda i: (0, 0, i),
-                                memory_space=pltpu.VMEM)
+    assert n % BLOCK == 0, (n, BLOCK)
+    assert R == row_pad(R), R
+    bs = lambda c: pl.BlockSpec((c, R, BLOCK), lambda i: (0, 0, i))
+    bv = lambda c: pl.BlockSpec((c, BLOCK), lambda i: (0, i))
     return pl.pallas_call(
         functools.partial(_kernel, inner_iters=inner_iters),
-        grid=grid,
-        in_specs=[
-            bs(_NCH),
-            bs(3),
-            pl.BlockSpec((2, _BLOCK), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((8, _BLOCK), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            bs(3),
-        ],
-        out_specs=[
-            pl.BlockSpec((8, _BLOCK), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            bs(3),
-        ],
+        grid=(n // BLOCK,),
+        in_specs=[bs(_NCH), bs(3), bv(2), bv(8), bs(3)],
+        out_specs=[bv(8), bs(3)],
         out_shape=[
             jax.ShapeDtypeStruct((8, n), jnp.float32),
             jax.ShapeDtypeStruct((3, R, n), jnp.float32),
         ],
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=1),
         interpret=interpret,
+        name="solver_inner_sweeps",
     )(fields, term, self_p, S, acc)

@@ -15,7 +15,7 @@ collision.rs:610-659 (polygon x moving sphere) and collision.rs:1089-1141
 (sphere x moving sphere) in f64.  The Gauss-Seidel inner loop runs in native
 C++ (csrc/mgf_host.cpp solve_contacts_f64) with a python fallback.
 
-This module referees two divergences of the TPU engine from the reference:
+This module referees two divergences of the engine from the reference:
 solver schedule (rows-Jacobi vs sequential GS) and f32 vs f64 drift — see
 PARITY.md for measured curves.
 """

@@ -12,7 +12,7 @@ Decomposition (per step):
   shape table (one wide gather per side).
 * solver — the scatter-free row solver: each device updates its own rows'
   velocities and the packed (8, N) body state is re-all-gathered each
-  solver phase (3.2 MB at N = 100k — ICI noise).  No psum, no scatter.
+  solver phase (3.2 MB at N = 100k).  No psum, no scatter.
 
 Communication per step: 2 all-gathers of (N, 8)-ish tables +
 ``solver_iters`` all-gathers of the (8, N) state.
@@ -22,10 +22,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-try:
-    from jax import shard_map
-except ImportError:  # older jax
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from mgf_tpu import broadphase
@@ -51,7 +48,7 @@ def pad_bodies(state: RigidBodyState, multiple: int) -> RigidBodyState:
     Pads carry ``shape_r = -1`` — the universal "not a real body" marker:
     the grid builders (``build_grid``/``build_fat_grid`` ``valid`` arg)
     skip such rows entirely, so a pad can never alias through the grid
-    modulus into an in-scene bucket and evict a real body (ADVICE r2)."""
+    modulus into an in-scene bucket and evict a real body."""
     n = state.n_bodies
     pad = (-n) % multiple
     if pad == 0:
@@ -90,7 +87,7 @@ def make_sharded_step(cfg: WorldConfig, mesh: Mesh, axis: str = "b"):
     :mod:`mgf_tpu.parallel.spatial` for scale).  Bodies are padded to a
     mesh-size multiple.  Always uses the scatter-free row solver in its
     single-phase form; config options this path does not honor are
-    rejected loudly rather than silently diverging (ADVICE r1)."""
+    rejected loudly rather than silently diverging."""
     import warnings
     if cfg.two_phase:
         warnings.warn(

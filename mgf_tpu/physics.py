@@ -1,6 +1,6 @@
 """Rigid-body state and integration.
 
-TPU-native counterpart of the reference's ``src/physics.rs`` +
+Counterpart of the reference's ``src/physics.rs`` +
 ``src/compound.rs`` Component plumbing.  The whole body store is one
 structure-of-arrays pytree (:class:`RigidBodyState`) — the direct analog of
 mgf's ``RigidBodyVec`` (physics.rs:141-155) — with every vector a

@@ -1,6 +1,6 @@
 """World queries: overlap queries and ray casts over body sets.
 
-TPU-native counterpart of the reference's BVH query surface
+Counterpart of the reference's BVH query surface
 (bvh.rs:283-369): where mgf walks a pointer tree with a callback, these
 return fixed-shape candidate sets / min-t hits over the whole body batch —
 the natural query shape for array hardware.
@@ -80,7 +80,7 @@ class BodyGrid(NamedTuple):
     the actual span), so the DDA tests exactly the visited cell.  Bucket
     rows pack the full collider inline —
     [cx cy cz r ax ay az dx dy dz is_sphere idx] — so a visited cell costs
-    ONE (cap, 12) row fetch and no per-candidate body gather (TPU gather
+    ONE (cap, 12) row fetch and no per-candidate body gather (gather
     cost is per index).
 
     ``dims`` is PER-AXIS (power-of-two each): big piles are usually flat,

@@ -215,97 +215,72 @@ def stress_scene(n_bodies: int = 100_000, mixed: bool = False, seed: int = 0,
         (2, 6, 3), (3, 6, 7),
         (1, 5, 2), (2, 5, 6)], np.int32)
     world = make_world(b.build(), verts, faces)
-    # swept at 100k on v5e (r2, 12-layer pile): the sphere config uses the
-    # selected-octant fat grid with 4-float packed rows ("fat8x4": 8
-    # bucket-row gathers carrying [x y z idx], global max radius for the
-    # partner side — exact for uniform spheres).  fatten 0.02: the grid is
-    # rebuilt every step, so the reference's fat-proxy hysteresis margin
-    # (world.rs:181) buys nothing and only inflates the candidate window.
-    # cell 2.4 >= 2x pair reach (1.0 + sweeps + 2*fatten); cap 24 >= the
-    # settled per-cell occupancy.  solver_rows compacts the 12 constraint
-    # rows to the 8 earliest-TOI per body.  Mixed keeps the 27-cell packed
-    # grid: capsule pair reach exceeds the sel8 guarantee at this cell.
+    # The values below were tuned by sweeps at 100k on the engine's first
+    # accelerator; their speed on the H100 is not measured yet.  Quality
+    # results (penetration, overflow, drift) carry over: they are
+    # properties of the algorithm, not the device.
     if mixed:
-        # per-axis dims: the pile is FLAT — y occupies ~2 + 12*1.25 + bounce
-        # << the x/z span, so y gets 32 cells (51.2 modulus) and the table
-        # (and its build scatter) shrinks 4x.  span_excess watches aliasing.
-        # r4: "fat27x4" — width-4 fat grid rows + the FULL 27-cell window
-        # (guarantee = cell_size 1.6 >= the mixed pair reach ~1.55:
-        # capsule swept fat radius 0.75 + sphere 0.52 + margins).  The
-        # packed broadphase paid a (N, 27*cap, 4) refine gather (~21.6M
-        # indices ~= 100 ms at 100k — the r3 mixed bottleneck); the fat
-        # grid carries coordinates inline so the cull needs NO
-        # per-candidate gather.  sel8 ("fat8x4") is out: its guarantee is
-        # cell/2 and capsule reach exceeds it at any usable cell size.
-        # y gets 16 cells like the sphere pile (flat scene, modulus 32)
-        # — 32 doubled the table + its build scatter for nothing.
-        # r5: cell 2.0 / cap 14 — the r4 "m4" sweep's measured mixed speed
-        # lever (+20% at 10k, unchanged quality): the capsule-capsule pair
-        # reach (~1.54) leaves only ~0.03 of cadence slack at cell 1.6,
-        # pinning bp_every at 2; cell 2.0 budgets ~0.23/body so the
-        # staleness-gated cadence can actually engage (bp_every=8).
+        # "fat27x4": width-4 fat grid rows (coordinates inline, so the
+        # cull needs NO per-candidate gather) + the FULL 27-cell window,
+        # whose guarantee is the whole cell.  Cell 2.0 / cap 14: the
+        # capsule-capsule pair reach (~1.54) leaves only ~0.03 of cadence
+        # slack at cell 1.6, pinning bp_every at 2; cell 2.0 budgets
+        # ~0.23/body so the staleness-gated cadence can engage
+        # (bp_every=8).  The octant window ("fat8x4") is out: its
+        # guarantee is cell/2 and capsule reach exceeds it at any usable
+        # cell size.  Per-axis dims: the pile is FLAT — y gets 16 cells
+        # (modulus 32); span_excess watches aliasing.
         grid = GridConfig(cell_size=2.0, dim=(128, 16, 128), bucket_cap=14)
         # NO row compaction (rows=0): the packed (R0, N, 20) top-k
-        # intermediate pads its 20-wide minor 6.4x — measured 58 ms of
-        # the 150 ms mixed step (r4 profile), the single biggest row.
-        # K=9/cand=3 keep the uncompacted row count at 2*(9+3) = 24.
+        # intermediate of compaction costs more than solving the wider
+        # rows.  K=9/cand=3 keep the uncompacted row count at 2*(9+3).
         bp, K, rows, cand = "fat27x4", 9, 0, 3
         n_sph = int(np.sum(~caps))
     else:
-        # r4: "fat27x4" — width-4 fat grid + the FULL 27-cell window at
-        # cell 1.6 / cap 10.  Same cull volume as r3's sel8 octant at
-        # cell 2.4 / cap 24 (27x10 = 270 vs 8x24 = 192 candidate slots)
-        # but the full-window guarantee equals the WHOLE cell, so the
-        # per-body slack budget for the rebuild cadence is 0.5*1.6 -
-        # r_eff ~ 0.26 instead of 0.08 — the staleness-gated cache then
-        # rebuilds every ~10 steps instead of every ~2 (measured 45.9 ->
-        # 53.7 steps/s settled; sweep set "v"/"w").
-        # grid modulus (dim * cell) must exceed the box span (2 * wall)
-        # or occupied cells alias and buckets overflow silently
+        # "fat27x4" at cell 1.6 / cap 12: the full-window guarantee
+        # equals the WHOLE cell, so the per-body slack budget for the
+        # rebuild cadence is 0.5*1.6 - r_eff ~ 0.26 and the staleness-
+        # gated cache rebuilds every ~10 settled steps instead of every
+        # ~2.  The grid modulus (dim * cell) must exceed the box span
+        # (2 * wall) or occupied cells alias and buckets overflow
         dim = 32
         while dim * 1.6 < 2.0 * wall + 10.0:
             dim *= 2
-        # per-axis dims (r3): the pile is FLAT — y spans ~0..17 plus bounce
-        # (16 cells = 25.6 modulus covers it; span_excess watches aliasing)
-        # while x/z need `dim`.  cap 12 (r5): cap 10 measured a transient
-        # overflow of 2 bodies at one settled rebuild (an 11-occupant
-        # cell); 12 is throughput-neutral (59.7 vs 59.8) and restores the
-        # overflow-0 guard margin.
+        # per-axis dims: the pile is FLAT — y spans ~0..17 plus bounce
+        # (16 cells = 25.6 modulus covers it; span_excess watches
+        # aliasing) while x/z need `dim`.  cap 12: cap 10 showed a
+        # transient overflow of 2 bodies at one settled rebuild (an
+        # 11-occupant cell); 12 restores the overflow-0 guard margin.
         grid = GridConfig(cell_size=1.6, dim=(dim, 16, dim), bucket_cap=12)
-        # R = K + terrain_cand = 12 solver rows, NO compaction: the
-        # packed top-k selection's (R0, N, 20) intermediate pads its
-        # 20-wide minor dim 6.4x — measured slower than just solving the
-        # wider rows (and dropped rows go to 0)
+        # R = K + terrain_cand = 12 solver rows, NO compaction (see the
+        # mixed branch; dropped rows would go to 0)
         bp, K, rows, cand = "fat27x4", 9, 0, 3
     # warm_start (cross-frame impulse accumulators) holds the settled
     # 12-layer pile at max penetration ~0.17 where cold solves collapse
-    # past 0.9 — see PERF.md
-    # mixed-mode note (r5): with "ends" manifolds + the pierce-branch
-    # fix + warm_gamma, the mixed pile truly settles (mean |v| 0.20,
+    # past 0.9 — see PERF.md.
+    # mixed-mode note: with "ends" manifolds + the pierce-branch fix +
+    # warm_gamma, the mixed pile truly settles (mean |v| 0.20,
     # freeze-stable); the remaining max penetration ~0.31-0.38 is the
     # rows solver's split-mass equilibrium on the deepest-loaded
     # bottom-layer rows — more sweeps do NOT reduce it (2x6/3x6/3x4/2x8
-    # all land 0.31-0.34 at 10k; PERF.md), per-class p99 <= 0.18
-    # r3: fused_iso + stable_pairs + positional warm matching eliminate the
-    # separate constraint-precompute and warm-match gathers and cut terrain
-    # rows from the per-sweep solver gather (PERF.md r3 section)
+    # all land 0.31-0.34 at 10k), per-class p99 <= 0.18.
+    # fused_iso + stable_pairs + positional warm matching eliminate the
+    # separate constraint-precompute and warm-match gathers and cut
+    # terrain rows from the per-sweep solver gather.
     cfg = WorldConfig(
         # schedule: 4 outer x 4 inner during transients; the ADAPTIVE
         # schedule drops to 2 outer x 6 inner once the warm-hit fraction
-        # shows a persisted contact set (settled pile).  Measured r3 at
-        # the settled 100k state: 33.4 steps/s at pen 0.185 (vs 28.1 at
-        # 0.143 for stock 4x4), 600-step soak pen 0.10-0.16, contacts
-        # converging to ~676k; from-scratch 10k collapse tracks stock
-        # (hit fraction stays below threshold until the pile persists,
-        # final pen 0.07 / contacts 63k vs stock 0.09 / 63k).  Plain
-        # static 3-outer schedules DIVERGE on the collapse transient —
-        # block-Jacobi partner terms refresh once per OUTER sweep and the
-        # collapse needs >= 4 refreshes per step; the adaptive trigger is
-        # what makes the cheap schedule safe.
+        # shows a persisted contact set (settled pile).  Settled 100k
+        # max penetration 0.10-0.19 over a 600-step soak; the from-scratch
+        # 10k collapse tracks the stock schedule (hit fraction stays below
+        # threshold until the pile persists).  Plain static 3-outer
+        # schedules DIVERGE on the collapse transient — block-Jacobi
+        # partner terms refresh once per OUTER sweep and the collapse
+        # needs >= 4 refreshes per step; the adaptive trigger is what
+        # makes the cheap schedule safe.
         dt=1.0 / 60.0, solver_iters=4, solver_inner=4, two_phase=False,
-        # settled schedule 2x6 (r4 sweep set "s4": 2x8 -> 2x6 is +2.7
-        # steps/s at pen 0.121 vs 0.106; 2x4 reaches 0.146 — inner sweeps
-        # cost ~0.175 ms each even inside the Pallas kernel)
+        # settled schedule 2x6: max penetration 0.121 (2x8: 0.106, 2x4:
+        # 0.146)
         adapt_schedule=(0.97, 2, 6),
         shape_mode="mixed" if mixed else "spheres",
         solver="rows", broadphase=bp, solver_rows=rows, warm_start=True,
@@ -315,43 +290,36 @@ def stress_scene(n_bodies: int = 100_000, mixed: bool = False, seed: int = 0,
         n_sphere_rows=n_sph if mixed else -1,
         # broadphase rebuild cadence: reuse the cached candidate list and
         # rebuild only on the cadence OR the moment any body's drift +
-        # reach growth exceeds its build slack (exact staleness trigger,
-        # r4) — transients degrade to rebuild-every-step automatically.
+        # reach growth exceeds its build slack (exact staleness trigger)
+        # — transients degrade to rebuild-every-step automatically.
         # Spheres: the 27-window slack budget sustains a long cadence —
-        # the exact staleness trigger, not the modulus, schedules rebuilds
-        # (fires every ~10 settled steps), so the forced-rebuild modulus
-        # only ADDS rebuilds.  r5: 16 -> 32 measured +0.8 steps/s at the
-        # settled 100k state (60.7 vs 59.9), drift_excess still 0 by
-        # construction.  Mixed: cell 2.0 budgets real capsule slack (r5;
-        # at cell 1.6 capsule reach left ~0.03 and pinned the cadence
-        # at 2).
+        # the staleness trigger, not the modulus, schedules rebuilds
+        # (every ~10 settled steps), so the forced-rebuild modulus only
+        # ADDS rebuilds; drift_excess stays 0 by construction.  Mixed:
+        # cell 2.0 budgets real capsule slack.
         bp_every=8 if mixed else 32,
-        # hybrid warm matching (r4): positional (elementwise) on
-        # cache-reuse steps — the cached partner rows are bit-identical
-        # so pos matching is exact for pair rows — and the full
-        # quadratic search on rebuild steps
+        # hybrid warm matching: positional (elementwise) on cache-reuse
+        # steps — the cached partner rows are bit-identical so pos
+        # matching is exact for pair rows — and the full quadratic
+        # search on rebuild steps
         warm_match="hybrid",
-        # fused Pallas solver sweeps: ~+1% settled (the partner gather,
-        # not the HBM restream, is the solver's cost — PERF.md r4) and a
-        # smaller solver jaxpr; spheres iso path only
+        # fused solver sweeps (spheres iso path only)
         pallas_solver=not mixed,
-        # r4: capsule flank stacks rock on the reference's single
+        # capsule flank stacks rock on the reference's single
         # interval-midpoint contact (pen ~0.54 at 100k mixed) — the
         # "ends" extension emits the overlap interval's two endpoints
         # into the two manifold slots (collision.py:413-514, documented
-        # divergence).  r5: the extension's contact stream is now
-        # parity-gated against the f64 oracle's own ends mode
-        # (test_oracle.py::test_capsule_ends_contact_stream_parity +
+        # divergence), parity-gated against the f64 oracle's own ends
+        # mode (test_oracle.py::test_capsule_ends_contact_stream_parity +
         # scripts/mixed_resync.py; PARITY.md "ends resync" row)
         cap_manifold="ends" if mixed else "mid",
-        # r5: full-gain warm pre-apply x sliding capsule contacts holds a
+        # full-gain warm pre-apply x sliding capsule contacts holds a
         # self-sustaining agitated state on mixed piles (mean |v| 1.39
         # where the f64 oracle and the engine's own cold-20 settle to
-        # 0.17-0.23; bisected in PERF.md "r5 mixed-quality root cause").
-        # gamma=0.8 damps the loop: settled mean |v| 0.27, contact count
-        # matches the cold run's fully-settled packing.  Spheres keep
-        # classic full warm starting (calm at gamma=1, and the damping
-        # costs a fraction of warm convergence).
+        # 0.17-0.23).  gamma=0.8 damps the loop: settled mean |v| 0.27,
+        # contact count matches the cold run's fully-settled packing.
+        # Spheres keep classic full warm starting (calm at gamma=1, and
+        # the damping costs a fraction of warm convergence).
         warm_gamma=0.8 if mixed else 1.0,
         fused_iso=not mixed)
     from mgf_tpu.world import init_bp_cache, init_warm

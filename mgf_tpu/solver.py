@@ -1,6 +1,6 @@
 """Constraint-based contact solver.
 
-TPU-native counterpart of ``src/solver.rs``: warm-started sequential impulses
+Counterpart of ``src/solver.rs``: warm-started sequential impulses
 with Baumgarte stabilization, restitution threshold, and two-axis friction
 (ContactConstraint, solver.rs:82-253), in Vec3 component form.
 
@@ -310,8 +310,8 @@ def solve_parallel(con: ContactConstraints, bodies: BodyView, iters: int,
 # ---------------------------------------------------------------------------
 #
 # The flat ContactConstraints form above needs per-iteration gathers by
-# body_a/body_b AND segment-sum scatters — both are scalar-bound on TPU and
-# dominate the step.  The row form eliminates them: every body owns a row of
+# body_a/body_b AND segment-sum scatters, and the scatters dominate the
+# step.  The row form eliminates them: every body owns a row of
 # R constraint slots (its broadphase partners + terrain triangles), each pair
 # appears TWICE (once per body, mirrored), and a solver iteration is
 #
@@ -321,12 +321,13 @@ def solve_parallel(con: ContactConstraints, bodies: BodyView, iters: int,
 # — no scatter at all.  The twin copies of a pair compute bit-identical
 # impulses from the same global state, so both sides receive consistent
 # updates; with mass splitting (counts in the effective masses) the
-# iteration converges like the flat Jacobi.  Measured on v5e this is ~100x
-# faster than the segment-sum formulation.
+# iteration converges like the flat Jacobi.  On the engine's first
+# accelerator this was far faster than the segment-sum formulation (not
+# measured on the H100).
 
 class RowConstraints(NamedTuple):
     """Per-body rows of contact-point slots; all arrays (R, N) (slot-major so
-    the body axis N is the TPU lane dimension)."""
+    the body axis N is the contiguous minor dimension)."""
     partner: jnp.ndarray   # (R, N) int32 partner body (N_static for terrain)
     ra: Vec3               # contact point local to the row body
     rb: Vec3               # contact point local to the partner
@@ -344,7 +345,7 @@ class RowConstraints(NamedTuple):
 def pack_solver_bodies(bodies: BodyView, counts=None):
     """Pack the per-body quantities the constraint precompute reads into
     three (M, 8) tables so the (R, N)-indexed reads are 3 wide gathers
-    instead of ~21 scalar ones (TPU gather cost is per index).
+    instead of ~21 scalar ones (gather cost is per index).
 
     A: x.xyz  v.xyz  restitution friction
     B: omega.xyz  inv_mass  count  _ _ _
@@ -534,8 +535,8 @@ def build_row_constraints_iso(bodies: BodyView, partner, manifold: Manifold,
 class PartnerFields(NamedTuple):
     """Pre-gathered partner-side quantities for the fused iso constraint
     build: ONE wide row gather at narrowphase time serves both the contact
-    test and the constraint precompute (TPU gather cost is per index, and
-    rows up to ~100 B ride at the same per-index cost — see PERF.md).
+    test and the constraint precompute (gather cost is per index, and
+    a wide row rides at little more than a narrow one's cost).
     All arrays (K, N) where K is the pair-row count."""
     x_end: Vec3            # partner position at end of sweep (x + delta)
     v: Vec3
@@ -641,7 +642,8 @@ def solve_rows(rc: RowConstraints, v: Vec3, omega: Vec3, inv_mass,
                friction_mode: str = "textbook", two_phase: bool = True,
                inner_iters: int = 1, warm=None, return_acc: bool = False,
                partner_term0: Vec3 = None, n_gather_rows: int = None,
-               pallas_inner: bool = False, col_offset: int = 0,
+               pallas_inner: bool = False, pallas_interpret: bool = False,
+               col_offset: int = 0,
                state0=None, return_state: bool = False):
     """Scatter-free row sweeps.  ``v``/``omega``/masses cover M = N + statics
     rows; only bodies ``[col_offset, col_offset + rc.partner.shape[1])``
@@ -655,7 +657,7 @@ def solve_rows(rc: RowConstraints, v: Vec3, omega: Vec3, inv_mass,
 
     ``inner_iters`` > 1 runs block-Jacobi inner sweeps with partner
     velocities frozen between gathers (the partner-state gather is the
-    expensive op on TPU) — ``iters`` x ``inner_iters`` total sweeps with
+    expensive op) — ``iters`` x ``inner_iters`` total sweeps with
     ``iters`` gathers.
 
     ``warm`` is an optional (acc_n, acc_t1, acc_t2) triple of (R, N)
@@ -681,8 +683,9 @@ def solve_rows(rc: RowConstraints, v: Vec3, omega: Vec3, inv_mass,
 
     ``pallas_inner``: run each outer iteration's inner sweeps as the fused
     Pallas kernel (ops/solver_sweep.py) — identical math, but the ~18
-    (R, N) constraint channels stream through VMEM once per OUTER
-    iteration instead of once per sweep.  Requires the iso path (scalar
+    (R, N) constraint channels are read once per OUTER iteration instead
+    of once per sweep.  ``pallas_interpret`` runs it in the Pallas
+    interpreter (CPU tests).  Requires the iso path (scalar
     ``inv_moment``), single-phase, textbook friction.
     """
     n = rc.partner.shape[1]
@@ -702,10 +705,9 @@ def solve_rows(rc: RowConstraints, v: Vec3, omega: Vec3, inv_mass,
 
     def partner_term(S):
         # ROW-MAJOR state gather: transpose the packed (8, M) state to
-        # (M, 8) and fetch one contiguous row per index — measured ~10x
-        # faster than the minor-axis S[:, partner] form at (9, 100k)
-        # indices on v5e (scripts/micro_gather.py); the per-iteration
-        # transpose is noise against the gather.
+        # (M, 8) and fetch one contiguous row per index instead of eight
+        # strided minor-axis S[:, partner] reads; the per-iteration
+        # transpose is small against the gather.
         T = S.T                                     # (M, 8)
         if gather_all:
             g = T[rc.partner]                       # (R, N, 8) one gather
@@ -778,19 +780,22 @@ def solve_rows(rc: RowConstraints, v: Vec3, omega: Vec3, inv_mass,
                              "textbook-friction iso (scalar inertia) path "
                              "without a column offset")
         from mgf_tpu.ops import solver_sweep as _ss
-        pad = (-n) % _ss._BLOCK
-        padN = lambda a: (jnp.pad(a, [(0, 0)] * (a.ndim - 1) + [(0, pad)])
-                          if pad else a)
-        fields = padN(_ss.pack_row_fields(rc))
+        Rp = _ss.row_pad(R_tot)
+        pad = (-n) % _ss.BLOCK
+        padN = lambda a: jnp.pad(a, [(0, 0)] * (a.ndim - 1) + [(0, pad)])
+        padRN = lambda a: jnp.pad(a, [(0, 0), (0, Rp - R_tot), (0, pad)])
+        fields = padRN(_ss.pack_row_fields(rc))
         self_p = padN(jnp.stack([ima, ia_s]))
-        acc = padN(jnp.stack(acc0))
+        acc = padRN(jnp.stack(acc0))
         for k in range(iters):
             t = (partner_term0 if (k == 0 and partner_term0 is not None)
                  else partner_term(S))
-            term = padN(jnp.stack([t.x, t.y, t.z]))
+            term = padRN(jnp.stack([t.x, t.y, t.z]))
             Sn, acc = _ss.inner_sweeps(padN(S[:, :n]), fields, term,
-                                       self_p, acc, inner_iters)
+                                       self_p, acc, inner_iters,
+                                       interpret=pallas_interpret)
             S = jnp.concatenate([Sn[:, :n], S[:, n:]], axis=1)
+        acc = acc[:, :R_tot]
         out = S if return_state else unpack_body_state(S)
         if return_acc:
             acc3 = (acc[0, :, :n], acc[1, :, :n], acc[2, :, :n])

@@ -6,9 +6,7 @@ notably NOT RigidBodyVec.  Here the whole :class:`~mgf_tpu.world.World` is
 one pytree, so checkpointing is a flat array save/load — strictly more
 capable than the reference (full simulation state round-trips).
 
-``save_world``/``load_world`` use numpy ``.npz`` (no external deps); if
-orbax is available, ``save_world(path, world, use_orbax=True)`` delegates to
-an orbax PyTreeCheckpointer for async/sharded checkpoints.
+``save_world``/``load_world`` use numpy ``.npz`` (no external deps).
 """
 
 from __future__ import annotations
@@ -28,13 +26,8 @@ def _flatten_with_paths(tree):
     return out, treedef
 
 
-def save_world(path: str, world, use_orbax: bool = False):
+def save_world(path: str, world):
     """Serialize a World (or any pytree of arrays) to ``path``."""
-    if use_orbax:
-        import orbax.checkpoint as ocp
-        ckptr = ocp.PyTreeCheckpointer()
-        ckptr.save(path, world)
-        return
     arrays, _ = _flatten_with_paths(world)
     np.savez_compressed(path, **arrays)
 

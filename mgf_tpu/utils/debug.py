@@ -2,7 +2,7 @@
 
 The reference relies on Rust's safety plus panics on misuse (SURVEY.md
 §5.2-5.3: ``Pool::remove`` of an empty slot, ``BVH::root`` on empty,
-``Sphere::new`` with r <= 0 all panic).  The TPU engine's device code is
+``Sphere::new`` with r <= 0 all panic).  The engine's device code is
 total (masks instead of panics) and host-side misuse is validated in
 SceneBuilder; this module adds the runtime observability layer:
 

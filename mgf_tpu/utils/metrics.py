@@ -1,7 +1,7 @@
 """Metrics / tracing helpers.
 
 The reference's only instrumentation is the demos' per-step wall-clock
-print (balls.rs:107-112).  The TPU engine returns a metrics dict from every
+print (balls.rs:107-112).  The engine returns a metrics dict from every
 jitted step (num_pairs, num_contacts, broadphase_overflow, ...); this module
 adds a host-side accumulator and a timing harness around
 ``jax.block_until_ready`` plus optional ``jax.profiler`` traces.

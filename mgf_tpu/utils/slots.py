@@ -1,14 +1,14 @@
 """Fixed-capacity masked slot tables.
 
-TPU-native counterpart of the reference's container layer:
+Counterpart of the reference's container layer:
 
 * ``Pool<T>`` (pool.rs:37-41) — a growable free-list slab with stable
-  indices.  On TPU, growable structures don't exist; the equivalent is a
+  indices.  In jitted device code, growable structures don't exist; the equivalent is a
   fixed-capacity :class:`SlotTable` whose free list is a validity mask and
   whose "allocation" picks the first free slot branch-free.  The EPA
   polytope (gjk.py) and the manifold pruner (manifold.py) are built on this
   pattern inline; this module exposes it as a reusable primitive.
-* ``FixedSizeBitSet`` (bitset.rs:19-31) — on TPU a boolean mask array IS the
+* ``FixedSizeBitSet`` (bitset.rs:19-31) — on device a boolean mask array IS the
   bitset; the capsule-vs-polygon routine's parallel-edge marking
   (collision.rs:901-921) uses plain bool vectors (collision.py stage 4).
 """

@@ -1,6 +1,6 @@
 """The end-to-end physics step — one jitted function.
 
-TPU-native counterpart of ``mgf_demo/world.rs:227-294`` (``World::step``):
+Counterpart of ``mgf_demo/world.rs:227-294`` (``World::step``):
 
     complete_motion -> integrate -> broadphase -> narrowphase ->
     manifolds -> contact constraints -> impulse solver
@@ -112,17 +112,13 @@ class WorldConfig(NamedTuple):
                                      # stability extension (the reference
                                      # zeroes accumulators every frame,
                                      # solver.rs:101-192; SURVEY §7.7)
-    pallas_narrowphase: bool = False  # spheres mode: run the fused pair
-                                      # narrowphase as the Pallas TPU kernel
-                                      # (ops/narrowphase.py) instead of the
-                                      # jnp path
     pallas_solver: bool = False      # iso rows path (fused_iso, single-
                                      # phase, textbook friction): run each
                                      # outer iteration's inner sweeps as
                                      # the fused Pallas kernel
-                                     # (ops/solver_sweep.py) — identical
-                                     # math; the (R, N) constraint
-                                     # channels stream through VMEM once
+                                     # (ops/solver_sweep.py, Triton, GPU
+                                     # only) — identical math; the (R, N)
+                                     # constraint channels are read once
                                      # per OUTER iteration instead of once
                                      # per sweep
     solver_rows: int = 0             # rows solver: compact ALL constraint
@@ -149,7 +145,7 @@ class WorldConfig(NamedTuple):
                                      # prerequisite for warm_match="pos".
                                      # Also drops duplicate partners (grid
                                      # modulus aliasing can bin the same
-                                     # body twice — ADVICE r2)
+                                     # body twice)
     warm_match: str = "search"       # how warm-start rows are matched to
                                      # the previous frame's:
                                      # "search": full (R, R_prev, N)
@@ -207,8 +203,8 @@ class WorldConfig(NamedTuple):
     light_metrics: bool = False      # skip the heavyweight observability
                                      # reductions (reach/span excess,
                                      # max_penetration, num_pairs/contacts,
-                                     # solver_dv_norm — ~1.7 ms/step of
-                                     # "tail" at 100k, PERF.md r4 s5); the
+                                     # solver_dv_norm — the step's
+                                     # metrics "tail" at 100k); the
                                      # skipped keys return 0 with the same
                                      # dtypes.  warm_hit_frac, overflow and
                                      # the bp staleness machinery (physics-
@@ -246,7 +242,7 @@ class WorldConfig(NamedTuple):
 class BpCache(NamedTuple):
     """Cached broadphase candidate list + the positions it was built at.
 
-    The TPU analog of the reference's fat proxies (world.rs:233-238 +
+    The device-side analog of the reference's fat proxies (world.rs:233-238 +
     ``bounds + 0.25``, world.rs:181): candidates built with an extra
     ``cfg.bp_margin`` of slack stay CONSERVATIVE until some body drifts
     more than margin/2 from its anchor, so settled scenes skip the grid
@@ -362,8 +358,8 @@ def make_world(bodies: RigidBodyState, terrain_verts=None, terrain_faces=None,
             # component-blocked float rows [fid*cap | cx*cap | cy*cap |
             # cz*cap]: the face CENTROID rides the window gather, so the
             # cull's distance scoring needs no per-candidate gather
-            # (r3: three (N, 27*cap) centroid gathers were 88 of the
-            # terrain stage's 91 ms at 10k bodies)
+            # (three (N, 27*cap) centroid gathers were most of the
+            # terrain stage on the engine's first accelerator)
             ids = np.asarray(mg.table)                       # (C, cap)
             cent = tv[tf[:, 0]] / 3 + tv[tf[:, 1]] / 3 + tv[tf[:, 2]] / 3
             safe = np.maximum(ids, 0)
@@ -382,7 +378,7 @@ def make_world(bodies: RigidBodyState, terrain_verts=None, terrain_faces=None,
 def _stable_sort_pairs(partner, pair_ok):
     """Canonical slot order: sort each body's partner list by index
     (invalid slots to the end) and mask duplicate partners (modulus
-    aliasing can bin one body into two windows — ADVICE r2).  The partner
+    aliasing can bin one body into two windows).  The partner
     SET is unchanged; slot positions become deterministic."""
     big = jnp.int32(1 << 28)
     p_s = jnp.sort(jnp.where(pair_ok, partner, big), axis=1)
@@ -415,7 +411,7 @@ def shape_view(state: RigidBodyState) -> ShapeView:
 
 
 class PackedShapes(NamedTuple):
-    """Per-body shape data packed for single wide gathers (TPU gathers cost
+    """Per-body shape data packed for single wide gathers (gathers cost
     per index: fetching one 8-wide row beats eight scalar gathers).
     ``p8`` carries 12 columns in capsule/mixed modes — the quaternion
     rides the same row so the capsule frame costs no second gather."""
@@ -449,8 +445,8 @@ def self_shapes(cfg: WorldConfig, sv: ShapeView, width: int,
     """The SELF side of a slot-major pair batch without any gather: every
     slot row reads the same (N,) body arrays, so a [None, :] broadcast
     (or broadcast+reshape for the flat (K*N,) layout) replaces the
-    p8[iota] gather — the iota indices are a real gathered fetch on TPU
-    (~5-11 ns per index) that XLA does not fold away."""
+    p8[iota] gather — the iota indices are a real gathered fetch that
+    XLA does not fold away."""
     from mgf_tpu.math3d import qrotate
     if flat:
         exp = lambda a: jnp.broadcast_to(
@@ -691,7 +687,7 @@ def step(world: World, cfg: WorldConfig, collect_contacts: bool = False):
     alive = state.shape_r > 0.0
     bounds = broadphase.swept_fat_bounds(_body_bounds(cfg, sv), state.delta,
                                          cfg.fatten)
-    # reach observability (ADVICE r1): the grid window only guarantees
+    # reach observability: the grid window only guarantees
     # coverage for pair reach <= cell_size ("27"/packed) or cell_size/2
     # ("sel8"); the worst pair reach is the sum of the two largest swept
     # fat radii.  Positive excess means fast movers may exceed the window
@@ -699,8 +695,8 @@ def step(world: World, cfg: WorldConfig, collect_contacts: bool = False):
     r_eff = jnp.where(alive, jnp.maximum(
         bounds.r.x, jnp.maximum(bounds.r.y, bounds.r.z)), 0.0)
     light = cfg.light_metrics
-    # top-2 via two max passes (lax.top_k over 100k costs ~2 ms on v5e
-    # for a 2-element result; two reductions are ~free)
+    # top-2 via two max passes (two reductions instead of a lax.top_k
+    # over 100k for a 2-element result)
     if n >= 2 and not light:
         m1 = jnp.max(r_eff)
         m2 = jnp.maximum(jnp.max(jnp.where(r_eff < m1, r_eff, -jnp.inf)),
@@ -854,11 +850,10 @@ def step(world: World, cfg: WorldConfig, collect_contacts: bool = False):
         return world, {"probe": jnp.sum(partner) + jnp.sum(pair_ok)}
 
     # ---- body-body narrowphase over the flattened partner matrix ----
-    # SLOT-MAJOR flattening ((K, N): slot k of every body, N on lanes):
+    # SLOT-MAJOR flattening ((K, N): slot k of every body, N minor):
     # the rows solver wants (slot, body) layout, so flattening this way
     # makes the row assembly below pure (free) reshapes — the row-major
-    # form needed 17+ per-field (N, K) -> (K, N) transposes whose 10-wide
-    # minor dim padded to 128 lanes (measured 34 ms at 100k)
+    # form needed 17+ per-field (N, K) -> (K, N) transposes
     # fused iso fast path (cfg.fused_iso): spheres + rows solver + warm
     # start + no row compaction + culled terrain.  ONE wide partner gather
     # at narrowphase time carries shape fields AND every quantity the
@@ -932,17 +927,7 @@ def step(world: World, cfg: WorldConfig, collect_contacts: bool = False):
         ps = pack_shapes(sv)
         ga = self_shapes(cfg, sv, K, flat=True)   # broadcast, no gather
         gb = gather_shapes(cfg, ps, cols)
-        if cfg.pallas_narrowphase and cfg.shape_mode == "spheres":
-            from mgf_tpu.ops import sphere_contact_pairs
-            P = rows.shape[0]
-            pad = (-P) % 4096
-            ga8 = jnp.pad(ps.p8[rows][:, :8], ((0, pad), (0, 0))).T
-            gb8 = jnp.pad(ps.p8[cols][:, :8], ((0, pad), (0, 0))).T
-            c = sphere_contact_pairs(ga8, gb8, use_pallas=True)
-            c = jax.tree_util.tree_map(lambda x: x[:P], c)
-            pc = contact_stack([c])
-        else:
-            pc = _pair_contact(cfg, ga, gb)            # slots (2, P)
+        pc = _pair_contact(cfg, ga, gb)                # slots (2, P)
     pc = pc._replace(valid=pc.valid & pair_valid[None])
     lc = LocalContact(
         local_a=pc.a - (ga.x + ga.delta * pc.t),
@@ -1011,8 +996,8 @@ def step(world: World, cfg: WorldConfig, collect_contacts: bool = False):
             # the face table rows carry [fid | centroid xyz] component-
             # blocked (make_world), so the distance scoring rides the 27
             # window gathers — a per-candidate centroid gather here was
-            # 3 x (N, 27*cap) indices = 88 of the terrain stage's 91 ms
-            # (r3).  Closeness and face id fuse into one int key
+            # 3 x (N, 27*cap) indices, most of the terrain stage on the
+            # engine's first accelerator.  Closeness and face id fuse into one int key
             # (14-bit quantized d2 | 17-bit fid) exactly like the pair
             # broadphase's fat_grid_pairs.
             d2_max = (3.0 * tg.cell_size) ** 2
@@ -1054,7 +1039,7 @@ def step(world: World, cfg: WorldConfig, collect_contacts: bool = False):
             t_ok = top2 >= 0
             t_cand = jnp.where(t_ok, top2 & 0x1FFFF, -1)
             t_width = cfg.terrain_cand
-            # window-coverage observability (ADVICE r2): the +-1-cell
+            # window-coverage observability: the +-1-cell
             # query window guarantees candidates only while each body's
             # reach (radius + half height + sweep) <= cell_size — faces
             # themselves are covered at build time by AABB binning.  A
@@ -1096,7 +1081,7 @@ def step(world: World, cfg: WorldConfig, collect_contacts: bool = False):
                 t_valid = t_ok.T.reshape(-1)
             # t_tris is a REAL gather here (not a broadcast iota): fetch
             # all nine triangle components in one 12-wide row gather
-            # instead of nine scalar ones (TPU gather cost is per index)
+            # instead of nine scalar ones (gather cost is per index)
             ta_ = world.terrain
             z9 = jnp.zeros_like(ta_.a.x)
             tpack = jnp.stack([ta_.a.x, ta_.a.y, ta_.a.z,
@@ -1351,7 +1336,7 @@ def step(world: World, cfg: WorldConfig, collect_contacts: bool = False):
                 # positional match: a row warms iff the SAME slot carried
                 # the same (partner, key2) last frame — zero gathers, pure
                 # elementwise.  Immune to the duplicate-key double-apply
-                # (ADVICE r2).
+                #.
                 hit = ((partner_rows == world.warm.partner)
                        & (key2_rows == world.warm.key2))
                 hf = hit.astype(jnp.float32)
@@ -1362,7 +1347,7 @@ def step(world: World, cfg: WorldConfig, collect_contacts: bool = False):
                 # full search: match rows by (partner, key2) key across all
                 # previous slots; the three accumulators ride in one packed
                 # array so the matched fetch is a single wide gather.
-                # NOTE (ADVICE r2): the (R, R_prev, N) boolean intermediate
+                # NOTE: the (R, R_prev, N) boolean intermediate
                 # scales quadratically in row count — fine for compacted
                 # configs, a memory hazard for uncompacted dense-terrain
                 # ones.
@@ -1384,11 +1369,11 @@ def step(world: World, cfg: WorldConfig, collect_contacts: bool = False):
                           & (key2_rows[:, None, :]
                              == world.warm.key2[None]))
                 # first-match one-hot contraction: replaces the (R, N)-index
-                # matched-accumulator gather (per-index TPU gather cost ~=
+                # matched-accumulator gather (per-index gather cost ~=
                 # the whole solver sweep) with a static sum over the R_prev
-                # slots — pure VPU flops.  "first" keeps exact
+                # slots — pure elementwise flops, no matrix product.  "first" keeps exact
                 # first-match-wins semantics when duplicate keys exist
-                # (possible without stable_pairs — ADVICE r2).
+                # (possible without stable_pairs).
                 first = eq & (jnp.cumsum(eq.astype(jnp.int8), axis=1) == 1)
                 zn = jnp.zeros(partner_rows.shape, jnp.float32)
                 wn, wt1, wt2 = zn, zn, zn
@@ -1722,7 +1707,7 @@ def with_capacity(world: World, capacity: int) -> World:
     """Pad the body store to a static ``capacity`` with dead rows so later
     :func:`spawn_bodies` / :func:`kill_bodies` are O(1) mask edits that
     never change array shapes (and therefore never recompile the step).
-    The TPU-native Pool (pool.rs:37-41): capacity is the slab, the
+    The device-side Pool (pool.rs:37-41): capacity is the slab, the
     shape_r > 0 mask is the free list."""
     import numpy as np
     n = world.bodies.n_bodies

@@ -1,4 +1,4 @@
-"""Matched-N cold-quality bridge (VERDICT r4 weak #2): run the ENGINE's
+"""Matched-N cold-quality bridge: run the ENGINE's
 cold-20 configuration (the bench's `stress_cold20` row semantics:
 warm_start off, 20 two-phase sweeps — the reference's own schedule,
 solver.rs:72-78 / world.rs:293) on the SAME 12-layer pile at the SAME N

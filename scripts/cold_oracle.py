@@ -1,5 +1,5 @@
 """What does the REFERENCE's own cold 20-sweep Gauss-Seidel yield on the
-12-layer stress pile?  (VERDICT r3 item 2.)
+12-layer stress pile? 
 
 The reference zeroes accumulators every frame and runs 20 sequential GS
 sweeps (solver.rs:72-78, world.rs:293).  Our warm-start extension is a

@@ -1,10 +1,12 @@
-"""Micro-benchmark: does partner-index LOCALITY change TPU gather cost?
+"""Micro-benchmark: does partner-index LOCALITY change GPU gather cost?
 
-The flagship solver's remaining cost is two (R, N)-index row gathers of
-the packed (N, 8) body state.  If gather throughput improves when the
-indices are clustered near the row position (cache/HBM locality), a
-cell-order body sort at rebuild time (VERDICT r3 next-1c) pays; if the
-cost is a flat per-index constant, it does not.
+The flagship solver's hot op is the (R, N)-index row gather of the packed
+(N, 8) body state.  If gather throughput improves when the indices are
+clustered near the row position (L2/HBM locality), a cell-order body sort
+at rebuild time pays; if the cost is a flat per-index constant, it does
+not.  Each pattern is timed as the median of ``--iters`` calls, each
+ending in ``block_until_ready``; the run stops unless JAX's first device
+is a GPU, and prints the card it ran on.
 
 Patterns measured at (r, n) = (9, 100k):
   random   — uniform indices (worst case)
@@ -27,15 +29,19 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from mgf_tpu.utils.runtime import (device_info, enable_compile_cache,
+                                   require_gpu)
 
-def timeit(f, args_list):
-    out = f(*args_list[0])
-    jax.block_until_ready(out)
-    t0 = time.perf_counter()
-    outs = [f(*a) for a in args_list]
-    for o in outs:
-        np.asarray(jax.tree_util.tree_leaves(o)[0]).ravel()[:1]
-    return (time.perf_counter() - t0) / len(args_list) * 1e3
+
+def timeit(f, args, iters):
+    """Median milliseconds per call (the first call compiles)."""
+    jax.block_until_ready(f(*args))
+    ts = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        jax.block_until_ready(f(*args))
+        ts.append(time.perf_counter() - t0)
+    return float(np.median(ts)) * 1e3
 
 
 def main():
@@ -44,6 +50,12 @@ def main():
     ap.add_argument("--r", type=int, default=9)
     ap.add_argument("--iters", type=int, default=20)
     args = ap.parse_args()
+    try:
+        require_gpu()
+    except RuntimeError as e:
+        sys.exit(f"micro_gather_locality: {e}")
+    enable_compile_cache()
+    print(f"device {device_info()}", flush=True)
     n, r = args.n, args.r
     rng = np.random.default_rng(0)
 
@@ -83,9 +95,8 @@ def main():
     jf = jax.jit(rowm)
     for name, p in patterns.items():
         idx = jnp.asarray(p.astype(np.int32))
-        argsT = [(T * (1.0 + 1e-6 * i), idx) for i in range(args.iters)]
         print(f"{name:8s} ({r},{n}) row gather: "
-              f"{timeit(jf, argsT):.3f} ms", flush=True)
+              f"{timeit(jf, (T, idx), args.iters):.4f} ms", flush=True)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """Mixed-mode settled quality: cap_manifold "mid" vs "ends" at 10k.
 
-VERDICT r2 item 3: single-midpoint capsule manifolds let parallel stacks
+Single-midpoint capsule manifolds let parallel stacks
 rock (settled max pen ~0.52); the endpoint-pair extension should hold
 <= 0.25.  Prints pen/overflow/contacts every 60 steps per config plus
 steps/s so the quality-vs-cost tradeoff is visible.

@@ -87,3 +87,29 @@ def test_gjk_batched():
             assert float(dist[i]) == pytest.approx(expected_gap[i], abs=1e-3)
         else:
             assert not bool(sep[i])
+
+
+def test_epa_horizon_pick_is_exact():
+    """The EPA horizon pick is an index gather: each picked vertex is
+    bit-equal to its source edge (a float matrix product here would lose
+    bits in TF32 on a GPU)."""
+    import numpy as np
+    from mgf_tpu.gjk import horizon_pick
+
+    rng = np.random.default_rng(0)
+    T, E, B = 8, 12, 5
+    x = jnp.asarray(rng.standard_normal((E, B)) * 1e3 + 1e-7, jnp.float32)
+    match = np.zeros((T, E, B), bool)
+    src = np.full((T, B), -1)
+    for b in range(B):
+        edges = rng.permutation(E)[:T - 2]      # two slots stay unmatched
+        for t, e in enumerate(edges):
+            match[t, e, b] = True
+            src[t, b] = e
+    got = np.asarray(horizon_pick(jnp.asarray(match), x))
+    xs = np.asarray(x)
+    for t in range(T):
+        for b in range(B):
+            if src[t, b] >= 0:
+                assert got[t, b].view(np.int32) == \
+                    xs[src[t, b], b].view(np.int32)

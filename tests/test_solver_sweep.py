@@ -1,12 +1,12 @@
-"""Parity tests for the fused Pallas solver-sweep kernel
-(ops/solver_sweep.py) against the jnp ``solve_rows`` path.
+"""Parity tests for the fused solver-sweep kernel (ops/solver_sweep.py)
+against the jnp ``solve_rows`` path, plus the jnp solve's own invariants.
 
 The kernel implements the single-phase textbook-friction ISO path of
 ``solve_rows`` (solver.rs:220-240 impulse math with scalar isotropic
 world inverse inertia): identical operations in the same order, so the
-two paths must agree to float addition-order noise.  On CPU (this test
-mesh) the kernel runs in interpret mode; on a real TPU it compiles via
-Mosaic — either way the math is the same.
+two paths must agree to float addition-order noise.  It compiles through
+Triton for the GPU; here it runs in the Pallas interpreter
+(``pallas_interpret=True``) — the math is the same.
 """
 
 import jax
@@ -14,53 +14,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mgf_tpu.math3d import Vec3
-from mgf_tpu.solver import RowConstraints, solve_rows
+from mgf_tpu.checks import random_row_system
+from mgf_tpu.math3d import Mat3, Vec3
+from mgf_tpu.solver import solve_rows
 
 
 def _random_rows(n=700, R=6, seed=0, valid_frac=0.7):
-    """A random (but self-consistent) row-constraint system: every column
-    is a body, partner indices point at other bodies (M = n + 1 with a
-    static terminal row), normals are unit, tangents orthonormal."""
-    rng = np.random.default_rng(seed)
-    f32 = lambda *s: jnp.asarray(rng.standard_normal(s), jnp.float32)
-
-    def unit(v):
-        m = jnp.sqrt(v.x ** 2 + v.y ** 2 + v.z ** 2) + 1e-9
-        return Vec3(v.x / m, v.y / m, v.z / m)
-
-    nrm = unit(Vec3(f32(R, n), f32(R, n), f32(R, n)))
-    # tangent basis orthogonal to nrm
-    helper = Vec3(jnp.ones((R, n), jnp.float32),
-                  jnp.zeros((R, n), jnp.float32) + 0.1,
-                  jnp.zeros((R, n), jnp.float32) - 0.2)
-    t1 = unit(Vec3(nrm.y * helper.z - nrm.z * helper.y,
-                   nrm.z * helper.x - nrm.x * helper.z,
-                   nrm.x * helper.y - nrm.y * helper.x))
-    t2 = Vec3(nrm.y * t1.z - nrm.z * t1.y,
-              nrm.z * t1.x - nrm.x * t1.z,
-              nrm.x * t1.y - nrm.y * t1.x)
-    valid = jnp.asarray(rng.uniform(size=(R, n)) < valid_frac)
-    partner = jnp.asarray(rng.integers(0, n + 1, (R, n)), jnp.int32)
-    rc = RowConstraints(
-        partner=partner,
-        ra=Vec3(f32(R, n) * 0.4, f32(R, n) * 0.4, f32(R, n) * 0.4),
-        rb=Vec3(f32(R, n) * 0.4, f32(R, n) * 0.4, f32(R, n) * 0.4),
-        normal=nrm, t1=t1, t2=t2,
-        friction=jnp.asarray(rng.uniform(0.2, 0.8, (R, n)), jnp.float32),
-        bias=jnp.asarray(rng.uniform(-0.5, 1.5, (R, n)), jnp.float32),
-        normal_mass=jnp.asarray(rng.uniform(0.2, 1.0, (R, n)), jnp.float32),
-        tangent_mass1=jnp.asarray(rng.uniform(0.2, 1.0, (R, n)),
-                                  jnp.float32),
-        tangent_mass2=jnp.asarray(rng.uniform(0.2, 1.0, (R, n)),
-                                  jnp.float32),
-        valid=valid)
-    m = n + 1
-    v = Vec3(f32(m), f32(m), f32(m))
-    omega = Vec3(f32(m) * 0.3, f32(m) * 0.3, f32(m) * 0.3)
-    inv_mass = jnp.asarray(rng.uniform(0.5, 1.5, m), jnp.float32)
-    iso = jnp.asarray(rng.uniform(0.5, 2.0, m), jnp.float32)
-    return rc, v, omega, inv_mass, iso
+    return random_row_system(n, R, seed, valid_frac)
 
 
 def _run(rc, v, omega, inv_mass, iso, pallas, iters=3, inner=4, warm=None,
@@ -68,7 +28,8 @@ def _run(rc, v, omega, inv_mass, iso, pallas, iters=3, inner=4, warm=None,
     return solve_rows(rc, v, omega, inv_mass, iso, iters,
                       friction_mode="textbook", two_phase=False,
                       inner_iters=inner, warm=warm, return_acc=True,
-                      n_gather_rows=ngr, pallas_inner=pallas)
+                      n_gather_rows=ngr, pallas_inner=pallas,
+                      pallas_interpret=True)
 
 
 def _assert_close(a, b, atol=2e-4, mask=None):
@@ -108,13 +69,10 @@ def test_pallas_inner_sweeps_warm_started():
     _assert_close(accj, accp, mask=rc.valid)
 
 
-def test_pallas_inner_sweeps_static_tail_rows():
-    """n_gather_rows: trailing rows have a STATIC partner whose term is
-    identically zero — both paths must cut them from the state gather and
-    still agree.  The static partner must genuinely have zero velocity for
-    the semantics to match the full gather, so point the tail rows at the
-    terminal static body row."""
-    rc, v, omega, inv_mass, iso = _random_rows(seed=5)
+def _static_tail(seed=5):
+    """Trailing rows point at the terminal static body row, which has
+    genuinely zero velocity (so cutting them from the gather is exact)."""
+    rc, v, omega, inv_mass, iso = _random_rows(seed=seed)
     R, n = rc.valid.shape
     ngr = R - 2
     static_partner = jnp.full((2, n), n, jnp.int32)
@@ -123,11 +81,25 @@ def test_pallas_inner_sweeps_static_tail_rows():
     v = Vec3(v.x.at[n].set(0.0), v.y.at[n].set(0.0), v.z.at[n].set(0.0))
     omega = Vec3(omega.x.at[n].set(0.0), omega.y.at[n].set(0.0),
                  omega.z.at[n].set(0.0))
-    vj, oj, accj = _run(rc, v, omega, inv_mass, iso, pallas=False, ngr=ngr)
-    vp, op, accp = _run(rc, v, omega, inv_mass, iso, pallas=True, ngr=ngr)
+    return (rc, v, omega, inv_mass, iso), ngr
+
+
+def test_pallas_inner_sweeps_static_tail_rows():
+    """n_gather_rows: trailing rows have a STATIC partner whose term is
+    identically zero — both paths must cut them from the state gather and
+    still agree."""
+    args, ngr = _static_tail()
+    vj, oj, _ = _run(*args, pallas=False, ngr=ngr)
+    vp, op, _ = _run(*args, pallas=True, ngr=ngr)
     _assert_close((vj, oj), (vp, op))
-    # and the cut gather itself must match the uncut one
-    vf, of, _ = _run(rc, v, omega, inv_mass, iso, pallas=False, ngr=None)
+
+
+def test_n_gather_rows_cut_matches_uncut():
+    """The jnp solve with the static tail cut from the per-sweep gather
+    equals the uncut gather."""
+    args, ngr = _static_tail(seed=6)
+    vj, oj, _ = _run(*args, pallas=False, ngr=ngr)
+    vf, of, _ = _run(*args, pallas=False, ngr=None)
     _assert_close((vj, oj), (vf, of))
 
 
@@ -136,3 +108,38 @@ def test_pallas_rejects_unsupported_modes():
     with pytest.raises(ValueError):
         solve_rows(rc, v, omega, inv_mass, iso, 2, two_phase=True,
                    pallas_inner=True)
+
+
+def test_pallas_kernel_refuses_cpu_without_interpret():
+    """The kernel compiles for the GPU only: on the CPU it raises unless
+    the caller asks for the interpreter — it never picks interpret mode
+    from the backend."""
+    rc, v, omega, inv_mass, iso = _random_rows(n=64, R=2)
+    with pytest.raises(RuntimeError, match="GPU only"):
+        solve_rows(rc, v, omega, inv_mass, iso, 2, two_phase=False,
+                   pallas_inner=True)
+
+
+def test_iso_scalar_inertia_matches_mat3_diagonal():
+    """The iso fast path (scalar world inverse inertia) equals the Mat3
+    path with the same inertia on the diagonal."""
+    rc, v, omega, inv_mass, iso = _random_rows(n=300, seed=11)
+    z = jnp.zeros_like(iso)
+    mat = Mat3(iso, z, z, z, iso, z, z, z, iso)
+    for two_phase in (False, True):
+        a = solve_rows(rc, v, omega, inv_mass, iso, 3, two_phase=two_phase,
+                       inner_iters=2)
+        b = solve_rows(rc, v, omega, inv_mass, mat, 3, two_phase=two_phase,
+                       inner_iters=2)
+        _assert_close(a, b, atol=1e-5)
+
+
+def test_warm_start_from_zero_equals_cold():
+    """A warm start from all-zero accumulators is exactly a cold solve."""
+    rc, v, omega, inv_mass, iso = _random_rows(n=300, seed=12)
+    z = jnp.zeros(rc.valid.shape, jnp.float32)
+    cold = _run(rc, v, omega, inv_mass, iso, pallas=False)
+    warm = _run(rc, v, omega, inv_mass, iso, pallas=False, warm=(z, z, z))
+    for a, b in zip(jax.tree_util.tree_leaves(cold),
+                    jax.tree_util.tree_leaves(warm)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))

@@ -80,13 +80,16 @@ def test_spatial_mixed_matches_single_device():
 def test_spatial_stress_config_matches_single_device():
     """The FLAGSHIP config semantics — warm start + stable pairs + fat8x4
     + "near" terrain cull + fused_iso count semantics — must run sharded
-    and track the single-device trajectory (VERDICT r2 #3)."""
+    and track the single-device trajectory."""
     from mgf_tpu.parallel.spatial import (make_spatial_step,
                                           shard_world_spatial)
     from mgf_tpu.scenes import stress_scene
     from mgf_tpu.world import make_step_fn
 
     world, cfg = stress_scene(n_bodies=300, layers=3)
+    # the one-device reference runs the jnp solve (the fused kernel
+    # compiles for the GPU only)
+    cfg = cfg._replace(pallas_solver=False)
     assert cfg.warm_start and cfg.stable_pairs and cfg.fused_iso
     assert cfg.broadphase in ("fat8x4", "fat27x4")
     assert cfg.terrain_bp == "near"
@@ -129,7 +132,7 @@ def test_spatial_drift_stray_and_reshard():
     """Bodies sliding across slab boundaries: the stray metric must fire
     once they leave halo reach of their home slab, and a host re-shard
     must restore stray == 0 while trajectories keep matching the
-    single-device run (VERDICT r2 #3: the re-shard contract is exercised,
+    single-device run (the re-shard contract is exercised,
     not just documented)."""
     from mgf_tpu.parallel.spatial import (make_spatial_step,
                                           shard_world_spatial)
@@ -190,7 +193,7 @@ def test_spatial_cfg_field_coverage():
     """EVERY WorldConfig field must be either honored by the spatial step
     or flagged (raise/warn) in _check_cfg — the registry is exhaustive, so
     a new config field cannot silently diverge on the multi-chip path
-    (VERDICT r4 weak #5: _check_cfg violated its own never-silently-
+    (_check_cfg violated its own never-silently-
     diverge policy for pallas_solver/adapt_schedule)."""
     import warnings
     from mgf_tpu.parallel import spatial
@@ -209,7 +212,6 @@ def test_spatial_cfg_field_coverage():
         "profile_stage": "pairs",          # raises
         "solver": "parallel",              # raises
         "bp_margin": 0.5,
-        "pallas_narrowphase": True,
         "pallas_solver": True,
         "n_sphere_rows": 10,
         "use_grid": False,
@@ -240,7 +242,7 @@ def test_spatial_bp_cadence_matches_every_step_rebuild():
     """cfg.bp_every on the spatial path: the staleness-gated cache must
     reuse candidate lists across steps (some steps NOT rebuilt), keep
     drift excess at 0 (exactly conservative by construction), and track
-    the rebuild-every-step spatial trajectory (VERDICT r4 missing #3)."""
+    the rebuild-every-step spatial trajectory."""
     from mgf_tpu.parallel.spatial import (init_spatial_bp_cache,
                                           make_spatial_step,
                                           shard_world_spatial)
